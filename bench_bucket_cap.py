@@ -1,8 +1,7 @@
 """Measure max_bucket (sketch-slot cap) effect on ratio/time/recall
 (round-3 verdict ask #6; findings recorded in docs/JOIN_CAP.md).
 
-Usage: JAX_PLATFORMS=cpu NSTPU_SKETCH=native NSTPU_TPU_PROBE=0 \\
-    python bench_bucket_cap.py
+Usage: JAX_PLATFORMS=cpu python bench_bucket_cap.py
 """
 import json
 import os

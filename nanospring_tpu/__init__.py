@@ -1,6 +1,6 @@
-"""nanospring-tpu: TPU-native lossless compressor for nanopore DNA read sequences.
+"""nanospring: lossless compressor for nanopore DNA read sequences.
 
-A from-scratch, JAX/XLA/Pallas-first re-design of the capabilities of the
+A from-scratch, JAX/XLA-first re-design of the capabilities of the
 reference tool NanoSpring (qm2/NanoSpring): FASTQ in, `.nstpu` archive out,
 byte-identical sequences back on decompression.
 
@@ -8,9 +8,9 @@ Architecture (see SURVEY.md for the reference analysis this is built against):
 
 - ``io``        2-bit packed array read stores, FASTQ/gzip ingestion, the
                 seven-stream edit-script serialization and the tar container.
-- ``ops``       TPU compute kernels: batched MinHash sketching, rolling k-mer
-                packing, batched banded alignment (Myers bit-parallel
-                filtering + scoring), edit-script utilities.
+- ``ops``       Device compute: batched MinHash sketching and the batched
+                banded DP in plain jax/lax, rolling k-mer minimizers,
+                edit-script utilities.
 - ``pipeline``  The compression pipeline: candidate index (sort-join instead
                 of the reference's MPHF tables), contig building (batched
                 mosaic extension instead of the reference's per-thread
@@ -23,26 +23,28 @@ Architecture (see SURVEY.md for the reference analysis this is built against):
 - ``utils``     Stage timers, funnel counters, logging.
 """
 
+import os
+
 __version__ = "0.1.0"
 
 
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
 def enable_jax_compilation_cache() -> None:
-    """Persist XLA compilations across runs (kernel shapes recur)."""
-    import os
+    """Persist XLA compilations across runs (kernel shapes recur).
 
-    if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-        # CPU AOT cache entries are machine-feature sensitive (loader warns
-        # about possible SIGILL); the cache only pays off for accelerator
-        # backends where compiles are slow.
+    ``JAX_COMPILATION_CACHE_DIR``, where set, is read by JAX itself and
+    wins; otherwise the cache is the checkout's fixed ``.jax_cache``. The
+    CPU backend is left uncached: its executables are specialised to the
+    host's instruction set, and a checkout copied to another machine would
+    load them there.
+    """
+    import jax
+
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR") \
+            or jax.default_backend() == "cpu":
         return
-    try:
-        import jax
-
-        d = os.environ.get(
-            "NSTPU_JAX_CACHE", os.path.expanduser("~/.cache/nstpu_jax")
-        )
-        os.makedirs(d, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", d)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
-    except Exception:
-        pass
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)

@@ -40,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="adaptive first-try band half-width")
     p.add_argument("--polish-rounds", type=int, default=1,
                    help="consensus column-voting rounds (0 disables)")
-    p.add_argument("--aligner", choices=["auto", "native", "tpu", "python"],
+    p.add_argument("--aligner", choices=["auto", "native", "device", "python"],
                    default="auto", help="DP backend for contig growth")
     p.add_argument("--workers", type=int, default=0,
                    help="contig-growth worker processes (0 = auto)")

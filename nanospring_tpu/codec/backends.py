@@ -2,8 +2,8 @@
 
 Role of libbsc (BWT + QLFC, reference: src/bsc.cpp, 48 MB blocks, coder e2)
 and fast-lzma2 (reference: src/lzma2.cpp, preset 6) — entropy coding is
-byte-serial and branchy, the wrong shape for the TPU, so this stage stays on
-host CPUs (SURVEY.md §2.3).
+byte-serial and branchy, the wrong shape for a wide accelerator, so this
+stage stays on host CPUs (SURVEY.md §2.3).
 
 Current backends use the stdlib's native (C) codecs:
 - ``bz2``  — BWT + MTF + Huffman, the same codec family as libbsc; used for

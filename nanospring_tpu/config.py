@@ -3,7 +3,7 @@
 Defaults mirror the reference CLI defaults (reference: src/main.cpp:47-78 —
 k=23, n=60, overlap-sketch-thr=6, minimap k=20/w=50, max-chain-iter=400,
 edge-thr=4e6, t=20, decompression-memory=5 GB) so ratio comparisons are
-apples-to-apples, but the knobs control a different, TPU-first pipeline.
+apples-to-apples, but the knobs control a different, batch-first pipeline.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ class CompressConfig:
                                        # k-mers and skipped; drops counted
                                        # in FunnelStats.capped_* — measured
                                        # at 256/1024/uncapped in
-                                       # docs/BUCKET_CAP.md)
+                                       # docs/JOIN_CAP.md)
     max_chain_iter: int = 400          # chaining iteration cap analog
     band_width: int = 128              # banded-DP half-width for extension
     band_width_min: int = 64           # adaptive first-try band (native
@@ -50,7 +50,7 @@ class CompressConfig:
     repetitive_threshold: float = 0.7  # Hamming self-similarity cutoff
     polish_rounds: int = 1             # consensus column-voting rounds
 
-    # --- batching (TPU shapes) ---
+    # --- batching (device batch shapes) ---
     sketch_batch_reads: int = 4096     # reads per sketch kernel launch
     align_batch: int = 512             # (window, candidate) pairs per align launch
     frontier_target: int = 96          # queue depth the seeder tops up to;
@@ -75,14 +75,14 @@ class CompressConfig:
                                        # reference's -DCHECKS replay equality,
                                        # src/Consensus.cpp:280-337); slow
     aligner: str = "auto"              # "native" = C++ stitched/banded DP;
-                                       # "tpu" = Pallas v2 kernel as the
-                                       # engine's batch DP backend; "python"
-                                       # = the numpy oracle wavefront;
-                                       # "auto" = native, plus a first-batch
-                                       # probe of the chip path when a TPU
-                                       # is attached and NSTPU_TPU_PROBE=1
-                                       # (docs/TPU_ALIGNER.md has the
-                                       # measured tradeoff)
+                                       # "device" = the lax DP
+                                       # (ops/align_device.py) as the
+                                       # engine's batch DP, grown in the
+                                       # process that owns the card;
+                                       # "python" = the numpy oracle
+                                       # wavefront; "auto" = native until
+                                       # a measurement favours the device
+                                       # (docs/ALIGNER.md)
 
     # --- resources ---
     num_threads: int = 0               # 0 = os.cpu_count(); host-side pools

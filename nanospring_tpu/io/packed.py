@@ -2,7 +2,7 @@
 
 The reference packs each read into a per-read heap object
 (reference: src/dnaToBits.cpp, include/dnaToBits.h). Here reads live in flat
-numpy arrays so whole batches move to the TPU as one buffer:
+numpy arrays so whole batches move to the device as one buffer:
 
 - code space: A=0, C=1, G=2, T=3 (``BASE_CODES``); non-ACGT bases are mapped
   to A at pack time and recorded separately as (position, byte) exceptions so
@@ -11,7 +11,7 @@ numpy arrays so whole batches move to the TPU as one buffer:
   src/dnaToBits.cpp:6-9 — we do strictly better).
 - packed layout: 4 bases per uint8, base i in bits ``2*(i % 4)`` of byte
   ``i // 4``. This layout unpacks with shifts/masks only, identical on host
-  numpy and on TPU (uint8 is a native VPU dtype).
+  numpy and on the device (ops/sketch.py unpacks it there).
 
 Everything here is vectorized numpy; no Python per-base loops.
 """

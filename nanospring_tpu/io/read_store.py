@@ -6,7 +6,7 @@ as a single mutex-guarded temp file (reference: src/ReadData.cpp:110-142 and
 store is three numpy arrays — packed codes, byte offsets, lengths — so:
 
 - random access is lock-free array slicing,
-- whole batches unpack to a padded (B, Lpad) uint8 matrix for TPU kernels,
+- whole batches unpack to a padded (B, Lpad) uint8 matrix for device kernels,
 - low-mem mode swaps the packed buffer for an np.memmap with identical code
   paths (no separate mutex-serialized file protocol).
 

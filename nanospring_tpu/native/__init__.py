@@ -2,13 +2,19 @@
 
 The reference vendors minimap2/libbsc/fast-lzma2 as C/C++ (SURVEY.md §2.3);
 our native layer is from-scratch C++ for the same host-side roles. Build is
-a single g++ invocation (no cmake needed for one TU); the .so is cached next
-to the sources and rebuilt when any source is newer.
+a single g++ invocation (no cmake needed for one TU). The library is built
+with ``-march=native``, so its file name carries a hash of the sources'
+contents, the flags and the CPU features that flag resolved to: a checkout
+copied onto another machine builds its own library instead of loading one
+compiled for a foreign CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import glob
+import hashlib
 import os
 import subprocess
 import threading
@@ -19,35 +25,62 @@ _LIB: ctypes.CDLL | None = None
 
 _SOURCES = ["align.cpp", "codec.cpp", "fastq.cpp", "replay.cpp",
             "minimizers.cpp", "hot.cpp", "polish.cpp", "join.cpp",
-            "anchors.cpp", "engine.cpp", "sketch.cpp"]
-_SO_NAME = "libnstpu.so"
+            "anchors.cpp", "engine.cpp", "sketch.cpp", "polish_core.h"]
+_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+          "-fopenmp"]
+# NSTPU_ASAN=1 builds the native stage with AddressSanitizer (the
+# reference's Debug config, CMakeLists.txt:180-183); load with
+# LD_PRELOAD=$(g++ -print-file-name=libasan.so) python ...
+_ASAN_FLAGS = ["-fsanitize=address", "-fno-omit-frame-pointer", "-g"]
 
 
-def _needs_build(so_path: str) -> bool:
-    if not os.path.exists(so_path):
-        return True
-    so_mtime = os.path.getmtime(so_path)
-    return any(
-        os.path.getmtime(os.path.join(_DIR, s)) > so_mtime for s in _SOURCES
-    )
+def _cpu_key() -> str:
+    """The target options g++ resolves ``-march=native`` to on this host."""
+    out = subprocess.run(
+        ["g++", "-march=native", "-E", "-v", "-x", "c++", os.devnull,
+         "-o", os.devnull], capture_output=True, text=True, check=True).stderr
+    cc1 = next(ln for ln in out.splitlines() if "cc1plus" in ln)
+    return " ".join(t for t in cc1.split() if t.startswith(("-m", "--param")))
+
+
+def so_path(flags: list[str], cpu_key: str) -> str:
+    """Library path keyed by sources, flags and CPU."""
+    h = hashlib.sha256()
+    for src in _SOURCES:
+        with open(os.path.join(_DIR, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(flags).encode() + b"\0" + cpu_key.encode())
+    prefix = "libnstpu_asan" if "-fsanitize=address" in flags else "libnstpu"
+    return os.path.join(_DIR, f"{prefix}-{h.hexdigest()[:16]}.so")
 
 
 def build(verbose: bool = False) -> str:
-    # NSTPU_ASAN=1 builds the native stage with AddressSanitizer (the
-    # reference's Debug config, CMakeLists.txt:180-183); load with
-    # LD_PRELOAD=$(g++ -print-file-name=libasan.so) python ...
-    asan = os.environ.get("NSTPU_ASAN") == "1"
-    so_path = os.path.join(_DIR, "libnstpu_asan.so" if asan else _SO_NAME)
-    if _needs_build(so_path):
-        cmd = [
-            "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-            "-fopenmp", "-o", so_path,
-        ] + (["-fsanitize=address", "-fno-omit-frame-pointer", "-g"]
-             if asan else []) + [os.path.join(_DIR, s) for s in _SOURCES]
+    """Build the library for this host unless it exists; returns its path.
+
+    Concurrent builders (test workers, grow workers) serialise on a lock
+    file, and the library appears under its final name atomically.
+    """
+    flags = _FLAGS + (_ASAN_FLAGS if os.environ.get("NSTPU_ASAN") == "1"
+                      else [])
+    path = so_path(flags, _cpu_key())
+    if os.path.exists(path):
+        return path
+    with open(os.path.join(_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return path
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = ["g++", *flags, "-o", tmp] + [
+            os.path.join(_DIR, s) for s in _SOURCES if s.endswith(".cpp")]
         if verbose:
             print("[nstpu] building native lib:", " ".join(cmd))
         subprocess.run(cmd, check=True, capture_output=not verbose)
-    return so_path
+        os.replace(tmp, path)
+        prefix = os.path.basename(path).split("-")[0]
+        for old in glob.glob(os.path.join(_DIR, f"{prefix}-*.so")):
+            if old != path:
+                os.unlink(old)
+    return path
 
 
 def get_lib() -> ctypes.CDLL:
@@ -184,12 +217,12 @@ def get_lib() -> ctypes.CDLL:
                 u8p, i64p,
                 i64p, i64p, i64p, i64p, i64p,
             ]
-            lib.ns_engine_set_tpu.restype = None
-            lib.ns_engine_set_tpu.argtypes = [
+            lib.ns_engine_set_device.restype = None
+            lib.ns_engine_set_device.argtypes = [
                 ctypes.c_void_p, u8p, u8p,
                 i32p, i32p, i32p, i32p,
                 i32p, i32p, i32p, u8p,
-                i64, i64, i32,
+                i64, i64,
             ]
             lib.ns_engine_fetch.restype = None
             lib.ns_engine_fetch.argtypes = [
@@ -209,8 +242,6 @@ def get_lib() -> ctypes.CDLL:
             lib.ns_engine_free.restype = None
             lib.ns_engine_free.argtypes = [ctypes.c_void_p]
             dp = ctypes.POINTER(ctypes.c_double)
-            lib.ns_engine_probe_info.restype = None
-            lib.ns_engine_probe_info.argtypes = [dp, dp, i32p]
             lib.ns_engine_timings.restype = None
             lib.ns_engine_timings.argtypes = [ctypes.c_void_p, dp]
             lib.ns_join_stats.restype = None

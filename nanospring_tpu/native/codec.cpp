@@ -3,7 +3,8 @@
 // (BWT via libsais + QLFC coder) plays in the reference
 // (reference: src/bsc.cpp:1045-1057 — 48 MB blocks, coder e2;
 //  libbsc/bwt/libsais, libbsc/coder/qlfc). Entropy coding is byte-serial
-// and branchy — the wrong shape for a TPU — so it stays native on host.
+// and branchy — the wrong shape for a wide accelerator — so it stays
+// native on host.
 //
 // Block format: [u32 n][u32 primary][rc payload]  (raw-escape: primary =
 // 0xFFFFFFFF, payload = the input verbatim, for incompressible blocks).

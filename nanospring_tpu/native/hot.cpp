@@ -1,7 +1,7 @@
 // Host-side hot loops that were numpy-bound: batch unpack of the 2-bit
 // read store, the repetitive-read screen, and edit-script extraction.
 //
-// These are the TPU-framework's native runtime pieces, replacing numpy
+// These are the framework's native runtime pieces, replacing numpy
 // multi-pass array pipelines with single-pass OpenMP C++ (the reference
 // does the corresponding work inside its OpenMP loops:
 // src/ReadData.cpp:110-142 unpacking, src/Consensus.cpp:405-424 the

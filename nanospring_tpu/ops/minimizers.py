@@ -6,8 +6,8 @@ producing a mapping diagonal (minimap2/chain.c) — but instead of an O(A^2)
 chain DP we use diagonal voting over matched minimizers (the banded aligner
 absorbs residual drift), which is branch-free and batchable.
 
-Host-side numpy implementation (uint64 available here; the TPU variant of
-dense k-mer hashing lives in ops/sketch.py). Canonical k-mers make anchors
+Host-side numpy implementation (uint64 available here; the device variant
+of dense k-mer hashing lives in ops/sketch.py). Canonical k-mers make anchors
 strand-invariant; each anchor carries a flag saying whether the forward
 orientation won, so relative strand falls out of matched flags.
 """

@@ -1,4 +1,4 @@
-"""Batched MinHash sketching — the TPU kernel replacing MinHashReadFilter.
+"""Batched MinHash sketching — the device kernel replacing MinHashReadFilter.
 
 Reference semantics (src/ReadFilter.cpp): per read, extract all k-mers
 (k=23), apply n=60 hash functions (std::hash of kmer ^ random seed,
@@ -6,19 +6,19 @@ Reference semantics (src/ReadFilter.cpp): per read, extract all k-mers
 reference sketches the forward strand and queries forward + reverse
 complement separately (src/Consensus.cpp:180-191).
 
-TPU-first differences:
+Differences for a batched device kernel:
 - **Canonical k-mers**: each k-mer is min(kmer, revcomp-kmer) before
   hashing, so one sketch is strand-invariant; orientation is decided later
   by the aligner. Halves query work and doubles join sensitivity.
 - k-mers live as (hi, lo) uint32 pairs (46 bits for k=23) — JAX default has
-  no uint64; two-lane arithmetic keeps everything in native VPU dtypes.
+  no uint64; two-lane arithmetic keeps everything in 32-bit lanes.
 - Hashing: two murmur3 finalizers mix the (hi, lo) k-mer ONCE into
   (y, z); each of the n hash values is then the multiply-add
   y*a_j + z*b_j over odd per-seed constants (a 2-universal family whose
   high bits — the ones the per-slot MINIMUM keys on — carry the mixing).
   The reference pays a full std::hash per (k-mer, seed)
   (src/ReadFilter.cpp:133-136); mixing once per k-mer cuts per-seed work
-  ~4x on both the VPU and the host backends with the same join recall
+  ~4x on both the device and the host backends with the same join recall
   (measured: candidate/ratio parity on the 60 Mb bench within noise).
   Seeds are deterministic from the config seed (the reference draws from
   std::random_device per run, src/ReadFilter.cpp:49-63 — non-reproducible).

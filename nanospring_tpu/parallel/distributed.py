@@ -4,7 +4,7 @@ Each process owns a slice of the device mesh and runs the same program:
 
 1. ``jax.distributed.initialize`` wires the processes into one runtime
    (the coordinator is process 0) — collectives ride Gloo on CPU meshes
-   and ICI/DCN on TPU pods,
+   and NCCL on GPU meshes,
 2. every process loads the (shared-filesystem) FASTQ, sketches the read
    rows its devices own (global shard_map), and runs the two all_to_all
    shuffles of the candidate join, expanding only its local shards on the
@@ -21,7 +21,7 @@ Each process owns a slice of the device mesh and runs the same program:
    archive.
 
 The 2-process CPU test (tests/test_distributed.py) runs this end to end;
-on a TPU pod the same entry point runs one process per host.
+on a cluster the same entry point runs one process per host.
 """
 
 from __future__ import annotations
@@ -182,9 +182,8 @@ def compress_distributed(fq_path: str, out_path: str, work_dir: str,
         ph[name] = round(ph.get(name, 0.0) + (now - _t0), 3)
         _t0 = now
 
-    comm: dict[str, int] = {}   # bytes through each collective (the
-                                # measured communication term ROOFLINE.md
-                                # assumed; per-process view)
+    comm: dict[str, int] = {}   # bytes through each collective
+                                # (per-process view)
     pid = jax.process_index()
     nproc = jax.process_count()
     devs = jax.devices()
@@ -239,13 +238,10 @@ def compress_distributed(fq_path: str, out_path: str, work_dir: str,
     )
 
     # --- sharded sketch over the global mesh -----------------------------
-    # backend routing mirrors the single-process pipeline (contigs.py
-    # compute_all_sketches): on a CPU backend the bit-identical native
-    # host kernel is ~100x the XLA-CPU kernel (measured: the device
-    # sketch was 123 s of a 140 s nproc=1 run — the round-4 "9x
-    # distributed overhead" was almost entirely this), so each process
-    # sketches its own rows on the host and only the shuffles ride the
-    # mesh. An accelerator mesh keeps the device kernel.
+    # backend routing follows the single-process pipeline
+    # (contigs.sketch_backend): off the GPU each process sketches its own
+    # rows with the bit-identical native host kernel and only the shuffles
+    # ride the mesh; a GPU mesh runs the device kernel.
     rows_per_dev = -(-N // D)
     Npad = rows_per_dev * D
     lo = pid * L * rows_per_dev
@@ -257,14 +253,10 @@ def compress_distributed(fq_path: str, out_path: str, work_dir: str,
     rids_g = _global_from_local(mesh, rids_l, (Npad,))
 
     lib = None
-    if os.environ.get("NSTPU_SKETCH", "auto") != "tpu" \
-            and jax.default_backend() == "cpu":
-        try:
-            from .. import native as _nat
+    if cg.sketch_backend() == "native":
+        from .. import native as _nat
 
-            lib = _nat.get_lib()
-        except Exception:
-            lib = None
+        lib = _nat.get_lib()
     if lib is not None:
         # each process sketches exactly its own shard off the local
         # packed store, then the small (4*n_hashes B/read) sketch rows
@@ -576,10 +568,8 @@ def _finish_distributed(cfg, ph, _tick, pid, nproc, devs, D, L, mesh,
         "label_allgather_rounds": int(label_rounds),
         "label_allgather_bytes": int(label_rounds) * int(N) * 8,
         "phase_times": dict(ph),
-        # bytes through each collective, per process (the measured comm
-        # term for ROOFLINE.md's multi-chip projection; round-4 verdict
-        # ask #5). label/rep gathers are appended here so one dict holds
-        # the full table.
+        # bytes through each collective, per process. label/rep gathers
+        # are appended here so one dict holds the full table.
         "comm_bytes": {
             **(comm or {}),
             "label_allgather": int(label_rounds) * int(N) * 8 * nproc,
@@ -729,7 +719,8 @@ def _main(argv) -> int:
     fq, out, work, nproc, pid, port = argv[:6]
     import jax
 
-    jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS", "cpu"))
+    if os.environ.get("JAX_PLATFORMS"):
+        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
     # jax >= 0.9 ignores --xla_force_host_platform_device_count; the
     # virtual CPU mesh is requested via config (must precede backend init)
     ndev = os.environ.get("NSTPU_CPU_DEVICES")

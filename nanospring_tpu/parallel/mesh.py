@@ -2,7 +2,7 @@
 
 The reference's only parallelism is shared-memory OpenMP with a lock-striped
 claim table (reference: src/Consensus.cpp:256-277,444-468 and SURVEY.md §2.4).
-The TPU-native replacement (SURVEY.md §5.8):
+The accelerator-side replacement (SURVEY.md §5.8):
 
 - one mesh axis ``reads``: FASTQ batches are sharded over it (data
   parallelism over reads — the analog of OpenMP loops over reads),

@@ -29,6 +29,21 @@ def rss_gb() -> float:
         return 0.0
 
 
+def gpu_card() -> str:
+    """The card's name and power limit, one line per card, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+    them; read by a child process that stays off JAX."""
+    import subprocess
+
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({type(e).__name__})"
+
+
 class StageTimer:
     """Named stage spans with wall-clock + RSS reporting."""
 

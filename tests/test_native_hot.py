@@ -1,7 +1,7 @@
 """Parity tests: native hot-loop kernels (native/hot.cpp) vs numpy paths.
 
 The numpy implementations are the oracles; the native versions must match
-bit-for-bit (same policy as the aligner backends, tests/test_align_tpu.py).
+bit-for-bit (same policy as the aligner backends, tests/test_align_device.py).
 """
 
 import sys
